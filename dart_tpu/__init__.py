@@ -1,4 +1,4 @@
-"""dart_tpu — a TPU-native framework for dual-arm non-prehensile manipulation.
+"""dart_tpu — a batched JAX framework for dual-arm non-prehensile manipulation.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `dart-icra/DART-Dual-Arm-Non-Prehensile-Manipulation`:
@@ -7,10 +7,11 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of
                  LMPC 34-parameter Stribeck/rolling/toppling model).
 - ``solver``   : batched constrained trajectory optimisation (box-DDP /
                  AL-iLQR) replacing CasADi+IPOPT.
-- ``ops``      : hot kernels (Riccati scans, box-QP, Pallas TPU kernels).
+- ``ops``      : hot kernels (box-QP, lane algebra, the PMPC whole-solve
+                 Triton kernel, the route decision).
 - ``control``  : tray-tilt MPC front-ends, dual-arm coordination (DACTL),
                  impedance-QP arm controller.
-- ``adapt``    : online adaptation (RLS, PPO in Flax/Optax).
+- ``adapt``    : online adaptation (RLS, PPO in JAX/Optax).
 - ``rollout``  : jit-compiled closed-loop engines (lax.scan) replacing the
                  reference's multiprocessing orchestration.
 - ``physics``  : JAX rigid-body plant models (tray-object contact,

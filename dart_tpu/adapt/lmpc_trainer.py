@@ -80,7 +80,7 @@ def sample_target(rng) -> jnp.ndarray:
 
 
 def env_init(rng, ctlr: mpc_mod.LMPC, cfg: EnvConfig) -> LMPCEnvState:
-    dtype = jnp.result_type(float)  # canonical float (f32 on TPU, f64 in tests)
+    dtype = jnp.result_type(float)  # canonical float (f32 by default, f64 in tests)
     k1, k2, k3, k4 = jax.random.split(rng, 4)
     init_k = jax.random.uniform(
         k3, (N_PARAMS,),

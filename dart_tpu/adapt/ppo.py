@@ -1,5 +1,5 @@
-"""PPO in Flax/Optax — the TPU-native replacement for the reference's torch
-RL worker (`LMPC/src/controller/rlmpc2.py:33-107, 536-943`).
+"""PPO in JAX/Optax — the replacement for the reference's torch RL worker
+(`LMPC/src/controller/rlmpc2.py:33-107, 536-943`).
 
 Faithful algorithmic surface:
 
@@ -20,12 +20,12 @@ mesh (grads reduced with psum) instead of running in a separate process.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
 import optax
 
 
@@ -33,13 +33,25 @@ import optax
 # Policy network
 # --------------------------------------------------------------------------
 
-def _orthogonal_dense(feat, name=None):
-    return nn.Dense(feat, kernel_init=nn.initializers.orthogonal(np.sqrt(2)),
-                    bias_init=nn.initializers.zeros, name=name)
+def dense_init(rng, in_dim: int, out_dim: int, kernel_init):
+    """One dense layer's parameters, {"kernel" (in, out), "bias" (out,)}."""
+    return {"kernel": kernel_init(rng, (in_dim, out_dim), jnp.float32),
+            "bias": jnp.zeros((out_dim,), jnp.float32)}
 
 
-class ActorCritic(nn.Module):
-    """Tanh MLP actor + critic with learned state-independent log_std."""
+def dense(p, x):
+    return x @ p["kernel"] + p["bias"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorCritic:
+    """Tanh MLP actor + critic with learned state-independent log_std.
+
+    `init` returns {"params": {"actor_0": {"kernel", "bias"}, ...,
+    "actor_out", "critic_0", ..., "critic_out", "log_std"}} — the tree of
+    the Flax module this replaces, so its checkpoints restore unchanged.
+    Dense kernels are orthogonal with gain sqrt(2), biases zero.
+    """
 
     act_dim: int
     hidden_size: int = 64
@@ -48,21 +60,35 @@ class ActorCritic(nn.Module):
     std_min: float = 1e-2
     std_max: float = 2.0
 
-    @nn.compact
-    def __call__(self, obs: jnp.ndarray):
+    def _layers(self, in_dim: int):
+        dims = [in_dim] + [self.hidden_size] * self.hidden_layers
+        for head, out in (("actor", self.act_dim), ("critic", 1)):
+            for i in range(self.hidden_layers):
+                yield f"{head}_{i}", dims[i], dims[i + 1]
+            yield f"{head}_out", dims[-1], out
+
+    def init(self, rng, obs: jnp.ndarray):
+        orth = jax.nn.initializers.orthogonal(np.sqrt(2))
+        layers = list(self._layers(obs.shape[-1]))
+        keys = jax.random.split(rng, len(layers))
+        params = {name: dense_init(k, i, o, orth)
+                  for k, (name, i, o) in zip(keys, layers)}
+        params["log_std"] = jnp.full((self.act_dim,), np.log(self.std_init),
+                                     jnp.float32)
+        return {"params": params}
+
+    def apply(self, params, obs: jnp.ndarray):
+        p = params["params"]
         h = obs
         for i in range(self.hidden_layers):
-            h = jnp.tanh(_orthogonal_dense(self.hidden_size, f"actor_{i}")(h))
-        mean = _orthogonal_dense(self.act_dim, "actor_out")(h)
-
+            h = jnp.tanh(dense(p[f"actor_{i}"], h))
+        mean = dense(p["actor_out"], h)
         v = obs
         for i in range(self.hidden_layers):
-            v = jnp.tanh(_orthogonal_dense(self.hidden_size, f"critic_{i}")(v))
-        value = _orthogonal_dense(1, "critic_out")(v)[..., 0]
-
-        log_std = self.param("log_std", lambda key: jnp.full(
-            (self.act_dim,), np.log(self.std_init), jnp.float32))
-        log_std = jnp.clip(log_std, np.log(self.std_min), np.log(self.std_max))
+            v = jnp.tanh(dense(p[f"critic_{i}"], v))
+        value = dense(p["critic_out"], v)[..., 0]
+        log_std = jnp.clip(p["log_std"], np.log(self.std_min),
+                           np.log(self.std_max))
         return mean, jnp.exp(log_std), value
 
 

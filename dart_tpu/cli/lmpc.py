@@ -41,6 +41,8 @@ def main(argv=None):
     import jax
     import numpy as np
 
+    from dart_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from dart_tpu.adapt import lmpc_trainer as trainer
     from dart_tpu.adapt import ppo as ppo_mod
     from dart_tpu.control import mpc as mpc_mod

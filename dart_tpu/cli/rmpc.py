@@ -29,6 +29,8 @@ def main(argv=None):
 
     if args.f64:
         jax.config.update("jax_enable_x64", True)
+    from dart_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from dart_tpu.io.logging import (episode_json_name,
                                      save_episodes_json, to_jsonable)
     from dart_tpu.physics.tray_object import _KAPPA_INV

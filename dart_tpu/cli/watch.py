@@ -4,8 +4,8 @@ Every reference driver opens an interactive viewer (`PMPC/main.py:90`);
 this environment has no GL, so the live surface here is the telemetry
 ring: run an episode with streaming enabled
 
-    python -m dart_tpu.cli pmpc --stream /tmp/ep.ring --runtime 10 &
-    python -m dart_tpu.cli watch /tmp/ep.ring
+    python -m dart_tpu.cli pmpc --stream ep.ring --runtime 10 &
+    python -m dart_tpu.cli watch ep.ring
 
 and `watch` tails the ring file (the native writer thread drains + flushes
 continuously, `native/ringlog.cpp:47-68`), rendering at ~10 Hz:

@@ -3,8 +3,8 @@
 Each controller is a thin, *stateless* object holding only static problem
 structure (OCP definition, horizon, solver config); all evolving quantities
 (warm-start trajectory, previous control, RLS estimate, cached plan) live in
-an explicit carry pytree. This is the TPU-native replacement for the
-reference's controller objects + worker processes:
+an explicit carry pytree. This replaces the reference's controller objects +
+worker processes:
 
 - `PMPC`  ~ `PMPC/src/controller/mpc_3d.py:11-158`
 - `RMPC`  ~ `AdaptiveNPMPCSmooth` + `RLS` + the reference-governor loop of
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from dart_tpu.adapt.rls import RLSState, rls_init, rls_update
 from dart_tpu.control.reference import build_ref_traj, reference_governor
 from dart_tpu.models import dynamics as dyn
+from dart_tpu.ops import route as route_mod
 from dart_tpu.solver import ilqr
 from dart_tpu.solver.ocp import (LMPCAux, PMPCAux, RMPCAux, make_lmpc_ocp,
                                  make_pmpc_ocp, make_rmpc_ocp,
@@ -146,45 +147,33 @@ class PMPC:
 
 
 class PMPCBatch:
-    """Batch-major PMPC: one fused solve for a whole scenario batch.
+    """Batch-major PMPC: one solve for a whole scenario batch, exploiting
+    the affine-in-state structure of the PMPC dynamics (`solver.pmpc_fast`).
+    Semantics identical to `PMPC.solve` per lane.
 
-    The production throughput path: the Riccati backward pass runs as a
-    single Pallas kernel over all scenarios (`ilqr.solve_batch`), ~3x a
-    cold vmapped solve and ~10x warm on TPU (the scan backward is latency
-    bound). Semantics identical to `PMPC.solve` per lane.
+    On a GPU the whole solve is one Triton kernel (`ops.pallas.pmpc_solve`,
+    route chosen in `ops.route`) at a fixed budget of kernel_iters x
+    kernel_alphas (NOT cfg.max_iters, which governs the XLA solver used on
+    the CPU); lanes whose post-solve projected-gradient norm exceeds
+    `kernel_tol_grad` trigger up to `kernel_max_extra_rounds` warm
+    re-solves (the anti-silent-divergence escalation). Gravity comes from
+    params.g and must be a static python float on that path; a traced g
+    takes the generic batch solver, which honours it per lane.
     """
 
     def __init__(self, N: int = 15, dt: float = 0.002, u_bound: float = 0.6,
                  cfg: ilqr.ILQRConfig = ilqr.ILQRConfig(max_iters=4),
-                 use_pallas: bool = True, fast: bool = True,
                  use_kernel: bool = True, kernel_iters: int = 2,
                  kernel_alphas: int = 3, kernel_tol_grad: float = 5e-3,
-                 kernel_max_extra_rounds: int = 2,
-                 kernel_interpret: bool = False):
+                 kernel_max_extra_rounds: int = 2):
         self.N, self.dt, self.u_bound = N, dt, u_bound
         self.ocp = make_pmpc_ocp(dt=dt, u_bound=u_bound)
         self.cfg = cfg
-        self.use_pallas = use_pallas
-        # `fast`: exploit the affine-in-state structure of the PMPC dynamics
-        # (`solver.pmpc_fast`; identical solutions, ~2.5x throughput).
-        self.fast = fast
-        # `use_kernel`: whole-solve Pallas kernel (`ops.pallas.pmpc_solve`)
-        # when on TPU with B % 128 == 0 — the headline throughput path.
-        # NOTE: on this path the iteration budget is kernel_iters x
-        # kernel_alphas (NOT cfg.max_iters, which governs the XLA paths);
-        # lanes whose post-solve projected-gradient norm exceeds
-        # `kernel_tol_grad` trigger up to `kernel_max_extra_rounds` warm
-        # kernel re-solves (the anti-silent-divergence escalation).
-        # Gravity comes from params.g and must be a static python float on
-        # the kernel path (traced values fall back to the XLA paths).
         self.use_kernel = use_kernel
         self.kernel_iters = kernel_iters
         self.kernel_alphas = kernel_alphas
         self.kernel_tol_grad = kernel_tol_grad
         self.kernel_max_extra_rounds = kernel_max_extra_rounds
-        # Testing knob: run the whole-solve kernel in Pallas interpreter
-        # mode on CPU so CI exercises the real escalation code path.
-        self.kernel_interpret = kernel_interpret
 
     def init_carry(self, B: int, dtype=jnp.float32) -> PMPCCarry:
         return PMPCCarry(V=jnp.zeros((B, self.N, 2), dtype))
@@ -199,25 +188,20 @@ class PMPCBatch:
         aux = PMPCAux(target=targets, Qp=bc(weights.Qp), Qv=bc(weights.Qv),
                       R=bc(weights.R))
         # Kernel path requires STATIC gravity (a compile-time kernel
-        # constant); a traced/array params.g falls back to the XLA paths,
-        # which honor it — never silently solve with the wrong model.
+        # constant); a traced/array params.g takes the generic solver,
+        # which honors it — never silently solve with the wrong model.
         g_static = params.g if isinstance(params.g, (int, float)) else None
-        kernel_ok = (self.use_kernel and self.fast and B % 128 == 0
-                     and g_static is not None
-                     and (jax.default_backend() == "tpu"
-                          or self.kernel_interpret))
-        if kernel_ok:
-            from dart_tpu.solver import pmpc_fast
-
+        route = route_mod.solve_route() if self.use_kernel else None
+        from dart_tpu.solver import pmpc_fast
+        if route is not None and g_static is not None:
             def one_round(V):
-                # kernel emits the per-lane max|feedforward| of its last
-                # iteration (the XLA path's grad_norm) — diagnostics are
-                # free, no XLA-side vjp needed.
+                # the kernel emits the per-lane max|feedforward| of its
+                # last iteration (the XLA path's grad_norm) — diagnostics
+                # are free, no XLA-side vjp needed.
                 return pmpc_fast.solve_batch_kernel(
-                    bc(params.mu), aux, states, V, dt=self.dt,
+                    bc(params.mu), aux, states, V, route=route, dt=self.dt,
                     u_bound=self.u_bound, n_iters=self.kernel_iters,
-                    n_alphas=self.kernel_alphas, g=float(g_static),
-                    interpret=self.kernel_interpret)
+                    n_alphas=self.kernel_alphas, g=float(g_static))
 
             # Escalation: warm kernel re-solves while any lane is
             # non-stationary (the fixed 2-iter budget's failure mode);
@@ -233,21 +217,20 @@ class PMPCBatch:
             iters = jnp.broadcast_to(
                 (1 + rounds) * self.kernel_iters, (B,)).astype(jnp.int32)
             diag = SolveDiag(cost, z, iters, gnorm)
-        elif self.fast and g_static is not None:
+        elif g_static is not None:
             # Forward the static gravity — a non-default params.g must not
-            # be silently replaced by the module default on the fast path
-            # (ADVICE r2); traced/array g routes to the generic batch
-            # solver below, which honors it per lane.
-            from dart_tpu.solver import pmpc_fast
+            # be silently replaced by the module default on the fast path;
+            # traced/array g routes to the generic batch solver below,
+            # which honors it per lane.
             V, Z, cost = pmpc_fast.solve_batch_fast(
                 bc(params.mu), aux, states, carry.V, dt=self.dt,
                 u_bound=self.u_bound, max_iters=self.cfg.max_iters,
-                g=float(g_static), use_pallas=self.use_pallas)
+                g=float(g_static))
             z = jnp.zeros((B,), states.dtype)
             diag = SolveDiag(cost, z, jnp.zeros((B,), jnp.int32), z)
         else:
             sol = ilqr.solve_batch(self.ocp, self.cfg, params, aux, states,
-                                   carry.V, use_pallas=self.use_pallas)
+                                   carry.V)
             V = sol.V
             diag = _diag(sol)
         V_next = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
@@ -399,17 +382,15 @@ class RMPC:
 
 class RMPCBatch(RMPC):
     """Batch-major RMPC: vectorised RLS/governor/reference + one constrained
-    `solve_batch` (fused Pallas backward on TPU) for the whole scenario
-    batch. Carry leaves all gain a leading batch dimension. With
-    ``use_kernel=True`` (default) and `slew_exact`, the COMPLETE constrained
-    solve — AL outer loop included — runs in one Pallas kernel per 128-lane
-    tile (`ops.pallas.rmpc_solve`) when the batch is a multiple of 128 on a
-    TPU backend."""
+    solve for the whole scenario batch. Carry leaves all gain a leading
+    batch dimension. With ``use_kernel=True`` (default), `slew_exact`, and
+    the kernel path chosen by `ops.route` (GPU), the COMPLETE constrained
+    solve — AL outer loop included — is the fixed-budget body of
+    `ops.rmpc_solve`; otherwise the adaptive `ilqr.solve_batch`."""
 
     def __init__(self, *args, kernel_iters: int = 6, kernel_alphas: int = 4,
                  kernel_al_rounds: int = 3, kernel_tol_grad: float = 5e-3,
                  kernel_max_extra_rounds: int = 2,
-                 kernel_interpret: bool = False,
                  kernel_xla_fallback: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         # Fixed unrolled budget for the whole-solve kernel. Defaults match
@@ -426,10 +407,6 @@ class RMPCBatch(RMPC):
         self.kernel_al_rounds = kernel_al_rounds
         self.kernel_tol_grad = kernel_tol_grad
         self.kernel_max_extra_rounds = kernel_max_extra_rounds
-        # Testing knob (mirrors PMPCBatch): run the whole-solve kernel in
-        # Pallas interpreter mode on CPU so CI can reproduce kernel-path
-        # closed-loop behaviour without a TPU.
-        self.kernel_interpret = kernel_interpret
         # Per-lane safety net (VERDICT r2 next-2): if any lane is still
         # non-stationary/infeasible AFTER kernel escalation, one XLA
         # `solve_batch` (adaptive iterations + regularisation ladder +
@@ -447,7 +424,7 @@ class RMPCBatch(RMPC):
     def solve_batched(self, carry: RMPCCarry, states: jnp.ndarray,
                       targets: jnp.ndarray,
                       weights: RMPCWeights = RMPC_DEFAULT_WEIGHTS,
-                      use_pallas: bool = True, use_kernel: bool = True):
+                      use_kernel: bool = True):
         """states (B, 4), targets (B, 4). Returns (carry', u (B, 2), diag)."""
         B = states.shape[0]
 
@@ -476,16 +453,15 @@ class RMPCBatch(RMPC):
             x, states.dtype), (B,)), weights)
         aux = RMPCAux(ref=refs, Qp=w.Qp, Qv=w.Qv, Ru=w.Ru, Rdu=w.Rdu)
         z0 = jnp.concatenate([states, carry.u_prev], axis=-1)
-        kernel_ok = (use_kernel and self.slew_exact and B % 128 == 0 and
-                     (jax.default_backend() == "tpu"
-                      or self.kernel_interpret))
+        kernel_ok = (use_kernel and self.slew_exact
+                     and route_mod.solve_route() is not None)
         if kernel_ok:
-            from dart_tpu.ops.pallas.rmpc_solve import rmpc_solve_pallas
+            from dart_tpu.ops.rmpc_solve import rmpc_solve
             tl = lambda x: jnp.moveaxis(x, 0, -1)
             wk = jnp.stack([w.Qp, w.Qv, w.Ru, w.Rdu])
 
             def one_round(V):
-                Vn, cost, viol, gn = rmpc_solve_pallas(
+                Vn, cost, viol, gn = rmpc_solve(
                     tl(theta), tl(refs), wk, tl(z0), jnp.moveaxis(V, 0, -1),
                     dt=self.dt,
                     u_bound=self.u_bound, du_bound=self.du_bound,
@@ -493,8 +469,7 @@ class RMPCBatch(RMPC):
                     n_iters=self.kernel_iters, n_alphas=self.kernel_alphas,
                     al_rounds=self.kernel_al_rounds,
                     mu_init=self.cfg.mu_init, mu_scale=self.cfg.mu_scale,
-                    mu_max=self.cfg.mu_max, tol_con=self.cfg.tol_con,
-                    interpret=self.kernel_interpret)
+                    mu_max=self.cfg.mu_max, tol_con=self.cfg.tol_con)
                 return jnp.moveaxis(Vn, -1, 0), cost, viol, gn
 
             # the kernel's gnorm is the AL-merit feedforward norm, valid at
@@ -528,7 +503,7 @@ class RMPCBatch(RMPC):
                     V_ws = jnp.where(lane_ok[:, None, None], Vk,
                                      jnp.zeros_like(Vk))
                     sx = ilqr.solve_batch(self.ocp, self.cfg, params, aux,
-                                          z0, V_ws, use_pallas=use_pallas)
+                                          z0, V_ws)
                     m3 = bad[:, None, None]
                     Vm = jnp.where(m3, sx.V, Vk)
                     # sx.grad_norm is the RAW feedforward norm — large at
@@ -552,7 +527,7 @@ class RMPCBatch(RMPC):
                                     viol=viol, iters=iters, grad_norm=gnorm)
         else:
             sol = ilqr.solve_batch(self.ocp, self.cfg, params, aux, z0,
-                                   carry.V, use_pallas=use_pallas)
+                                   carry.V)
         if self.slew_exact:
             u = jnp.clip(carry.u_prev + sol.V[:, 0], -self.u_bound,
                          self.u_bound)
@@ -627,16 +602,14 @@ class LMPC:
 
 
 class LMPCBatch(LMPC):
-    """Batch-major LMPC: one `solve_batch` (fused Pallas backward on TPU)
-    over the whole scenario batch, with per-lane 34-parameter vectors — the
-    TPU replacement for running one CasADi worker process per scenario
-    (`rlmpc2.py:228-533`). Carry leaves all gain a leading batch dimension.
-    The generic jacfwd linearisation is the measured fast path on XLA
-    (docs/PERFORMANCE.md "Negative result"); pass ``fast=True`` to use the
-    closed-form Jacobians instead. With ``use_kernel=True`` (default) the
-    COMPLETE solve runs in one Pallas kernel per 128-lane tile
-    (`ops.pallas.lmpc_solve`, ~900k solves/s/chip at N=8) when the batch is
-    a multiple of 128 on a TPU backend.
+    """Batch-major LMPC: one solve over the whole scenario batch, with
+    per-lane 34-parameter vectors — the replacement for running one CasADi
+    worker process per scenario (`rlmpc2.py:228-533`). Carry leaves all
+    gain a leading batch dimension. With ``use_kernel=True`` (default) and
+    the kernel path chosen by `ops.route` (GPU), the COMPLETE solve is the
+    fixed-budget body of `ops.lmpc_solve`; otherwise the adaptive
+    `ilqr.solve_batch`, whose generic jacfwd linearisation is the default
+    (``fast=True`` uses the closed-form Jacobians instead).
     """
 
     def __init__(self, N: int = 20, dt: float = 0.002, u_bound: float = 0.4,
@@ -646,11 +619,10 @@ class LMPCBatch(LMPC):
                  kernel_max_extra_rounds: int = 2):
         super().__init__(N=N, dt=dt, u_bound=u_bound, cfg=cfg, fast=fast)
         self.u_bound = u_bound
-        # Fixed unrolled budget for the whole-solve kernel (everything is
-        # VMEM-resident and compile time grows with iters * alphas * N; 2
-        # iterations recover warm-started receding-horizon accuracy, same
-        # trade as the PMPC kernel). NOTE: cfg.max_iters governs only the
-        # XLA paths. Lanes whose post-solve projected-gradient norm exceeds
+        # Fixed budget for the whole-solve body (compile time grows with
+        # iters * alphas * N; 2 iterations recover warm-started
+        # receding-horizon accuracy, same trade as PMPC). NOTE:
+        # cfg.max_iters governs only the adaptive solver. Lanes whose post-solve projected-gradient norm exceeds
         # `kernel_tol_grad` trigger up to `kernel_max_extra_rounds` warm
         # kernel re-solves.
         self.kernel_iters = kernel_iters
@@ -664,7 +636,7 @@ class LMPCBatch(LMPC):
     def solve_batched(self, carry: LMPCCarry, states: jnp.ndarray,
                       targets: jnp.ndarray, pvecs: jnp.ndarray,
                       weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS,
-                      use_pallas: bool = True, use_kernel: bool = True):
+                      use_kernel: bool = True):
         """states (B, 8), targets (B, 8), pvecs (B, 34) raw parameters.
 
         Returns (carry', u (B, 2), diag) — semantics of `LMPC.solve`
@@ -676,15 +648,13 @@ class LMPCBatch(LMPC):
                                        (B,) + jnp.shape(x)), weights)
         aux = LMPCAux(target=targets, Q=w.Q, R=w.R, Qt=w.Qt)
         z0 = jnp.concatenate([states, carry.u_prev], axis=-1)
-        kernel_ok = (use_kernel and B % 128 == 0 and
-                     jax.default_backend() == "tpu")
-        if kernel_ok:
-            from dart_tpu.ops.pallas.lmpc_solve import lmpc_solve_pallas
+        if use_kernel and route_mod.solve_route() is not None:
+            from dart_tpu.ops.lmpc_solve import lmpc_solve
             tl = lambda x: jnp.moveaxis(x, 0, -1)
 
             def one_round(V):
-                # kernel-emitted max|feedforward| = free convergence diag
-                Vn, cost, gn = lmpc_solve_pallas(
+                # body-emitted max|feedforward| = free convergence diag
+                Vn, cost, gn = lmpc_solve(
                     tl(pvecs), tl(w.Q), tl(w.R), tl(w.Qt), tl(targets),
                     tl(z0), jnp.moveaxis(V, 0, -1), dt=self.dt,
                     u_bound=self.u_bound,
@@ -705,7 +675,7 @@ class LMPCBatch(LMPC):
                                     iters=iters, grad_norm=gnorm)
         else:
             sol = ilqr.solve_batch(self.ocp, self.cfg, pvecs, aux, z0,
-                                   carry.V, use_pallas=use_pallas)
+                                   carry.V)
         u = sol.V[:, 0]
         new_carry = LMPCCarry(
             V=jnp.concatenate([sol.V[:, 1:], sol.V[:, -1:]], axis=1),

@@ -20,31 +20,43 @@ Pieces:
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
 import optax
 
+from dart_tpu.adapt.ppo import dense, dense_init
 from dart_tpu.models import dynamics as dyn
 from dart_tpu.solver.ilqr import OCPDef
 
 
-class DynamicsMLP(nn.Module):
-    """xdot = prior(x, u) + MLP([x, u]). State/control dims are inferred."""
+@dataclasses.dataclass(frozen=True)
+class DynamicsMLP:
+    """xdot = MLP([x, u]) (the prior, if any, is added by `neural_xdot`).
+    State/control dims are inferred at `init`; layers are {"params":
+    {"Dense_0": {"kernel", "bias"}, ...}} with LeCun-normal kernels."""
 
     nx: int
     hidden: Sequence[int] = (64, 64)
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
+    def init(self, rng, x: jnp.ndarray, u: jnp.ndarray):
+        dims = [x.shape[-1] + u.shape[-1], *self.hidden, self.nx]
+        keys = jax.random.split(rng, len(dims) - 1)
+        init = jax.nn.initializers.lecun_normal()
+        return {"params": {f"Dense_{i}": dense_init(k, dims[i], dims[i + 1],
+                                                    init)
+                           for i, k in enumerate(keys)}}
+
+    def apply(self, params, x: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
+        p = params["params"]
         h = jnp.concatenate([x, u], axis=-1)
-        for w in self.hidden:
-            h = jnp.tanh(nn.Dense(w)(h))
-        return nn.Dense(self.nx)(h)
+        for i in range(len(self.hidden)):
+            h = jnp.tanh(dense(p[f"Dense_{i}"], h))
+        return dense(p[f"Dense_{len(self.hidden)}"], h)
 
 
 class NeuralModel(NamedTuple):

@@ -8,7 +8,7 @@ bound handling, the trajectory optimiser solves, at every Riccati stage,
 
 For the tray problem nu == 2, so the QP is solved *exactly* by enumerating
 all 3^2 = 9 active sets — fully branch-free, vectorises across the horizon
-scan and the scenario batch, and maps to closed-form 2x2 algebra on the VPU.
+scan and the scenario batch, and maps to closed-form elementwise 2x2 algebra.
 A projected-Newton fallback (`boxqp_pn`) covers general nu.
 
 All functions are jit/vmap-safe and dtype-polymorphic.

@@ -1,4 +1,5 @@
-"""Pallas TPU kernel: the COMPLETE LMPC solve in one kernel launch.
+"""The complete fixed-budget LMPC solve as one batched program of lane
+algebra.
 
 LMPC is the learning-enhanced variant (`LMPC/src/controller/rlmpc2.py:236-533`
 in the reference): an nx=8 / nu=2 OCP over the 34-parameter Stribeck /
@@ -8,11 +9,8 @@ here the whole box-DDP solve — rollout, hand-derived closed-form RK4
 linearisation (`models.dynamics.lmpc_jac` / `rk4_jac`, pinned to autodiff by
 `tests/test_structure.py`), partitioned Riccati backward with exact 2x2 box
 QPs, multi-alpha line search, fixed iteration count with per-lane
-convergence masks — runs inside ONE VMEM-resident kernel per 128-scenario
-tile. This is exactly the place where the closed-form Jacobians pay off
-(docs/PERFORMANCE.md "Negative result"): inside the kernel there is no XLA
-fusion to compete with, and jacfwd is unavailable, so the hand Jacobians are
-the enabling ingredient.
+convergence masks — is one batched program with the scenarios on the
+trailing axis (`ops.lanes`), run by XLA.
 
 State layout: the solver state is augmented, z = [x(8), u_prev(2)] (the du
 move-suppression cost needs u_prev; see `solver.ocp.make_lmpc_ocp`). The
@@ -22,17 +20,17 @@ B = [[Bd], [I2]], the value Hessian splits into P (8,8), q (8,2), r (2,2)
 and every product touches only the nonzero blocks (~40% fewer lane FMAs
 than the dense form).
 
-Inputs per tile (batch on lanes, L = 128):
-  pvec   (34, L)      raw model parameters (squash applied in-kernel)
+Inputs (batch on the last axis, L lanes):
+  pvec   (34, L)      raw model parameters (squash applied in the body)
   Q      (8, L)       stage state cost diagonal
   R      (4, L)       [Ru0, Ru1, Rdu0, Rdu1]
   Qt     (8, L)       terminal state cost diagonal
   target (8, L)
   z0     (10, L)      [x0, u_prev]
   V0     (N, 2, L)    warm start
-Outputs: V (N, 2, L), cost (1, L).
+Outputs: V (N, 2, L), cost (L,), gnorm (L,).
 
-Reg-free like the PMPC kernel: the stage cost's (z, v) Hessian is PSD by
+Reg-free like the PMPC body: the stage cost's (z, v) Hessian is PSD by
 construction and the recursion is Gauss-Newton, so Vxx stays PSD and
 Quu >= 2(Ru + Rdu) > 0; a 1e-8 jitter guards the 2x2 inverses.
 """
@@ -43,30 +41,14 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from dart_tpu.ops.pallas.pmpc_solve import _diag_embed
-from dart_tpu.ops.pallas.riccati import (_add_diag_vec, _boxqp2_lanes,
-                                         _gains_lanes, _mm, _mT, _mv,
-                                         _rk4_jac_lanes)
-
-LANES = 128
+from dart_tpu.ops.lanes import (add_diag_vec, boxqp2_stacked, diag_embed,
+                                gains2_stacked, mm, mT, mv, rk4_jac)
 _G = 9.81   # positive, hard-coded like the reference (`rlmpc2.py:342`)
 
 
-def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
-                 p_ref, Q_ref, R_ref, Qt_ref, t_ref, z0_ref, V0_ref,
-                 lo_ref, hi_ref, V_out, cost_out, gnorm_out):
-    praw = p_ref[...]           # (34, L)
-    Q = Q_ref[...]              # (8, L)
-    Rfull = R_ref[...]          # (4, L)
-    Qt = Qt_ref[...]            # (8, L)
-    target = t_ref[...]         # (8, L)
-    z0 = z0_ref[...]            # (10, L)
-    u_lo = lo_ref[...]          # (2, L)
-    u_hi = hi_ref[...]
-    V = V0_ref[...]             # (N, 2, L)
+def _lmpc_body(N, n_iters, n_alphas, dt, roll_loops,
+               praw, Q, Rfull, Qt, target, z0, V, u_lo, u_hi):
     Ru = Rfull[0:2]
     Rdu = Rfull[2:4]
     x0 = z0[0:8]
@@ -177,7 +159,7 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
 
     def rk4_jac8(x, v):
         """Exact (Ad, Bd) of the RK4 step (`models.dynamics.rk4_jac`)."""
-        return _rk4_jac_lanes(f8, jac8, x, v, dt)
+        return rk4_jac(f8, jac8, x, v, dt)
 
     def stage_cost(x, v, up):
         e = x - target
@@ -186,17 +168,25 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
                 + Ru[0] * v[0] * v[0] + Ru[1] * v[1] * v[1]
                 + Rdu[0] * du[0] * du[0] + Rdu[1] * du[1] * du[1])
 
+    def terminal_cost(x):
+        e = x - target
+        return jnp.sum(Qt * e * e, axis=0)
+
+    def with_start(first, rest):
+        return jnp.concatenate([first[None], rest])
+
+    # Every stage loop is a `lax.scan` over the horizon, so the compiled
+    # program holds one copy of each stage body whatever N is.
     def rollout_cost(V):
-        xs = [x0]
-        up = up0
-        cost = jnp.zeros_like(Ru[0])
-        for k in range(N):
-            cost = cost + stage_cost(xs[k], V[k], up)
-            xs.append(rk4(xs[k], V[k]))
-            up = V[k]
-        e = xs[N] - target
-        cost = cost + jnp.sum(Qt * e * e, axis=0)
-        return jnp.stack(xs), cost    # (N+1, 8, L)
+        def stage(c, v):
+            x, up, cost = c
+            cost = cost + stage_cost(x, v, up)
+            x = rk4(x, v)
+            return (x, v, cost), x
+
+        (xN, _, cost), xs = jax.lax.scan(
+            stage, (x0, up0, jnp.zeros_like(Ru[0])), V)
+        return with_start(x0, xs), cost + terminal_cost(xN)   # (N+1, 8, L)
 
     X, cost = rollout_cost(V)
     alphas = [0.6 ** i for i in range(n_alphas)]
@@ -204,46 +194,39 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
     def iteration(carry):
         X, V, cost, done, _ = carry
         # u_prev trajectory is implied by V: UP[0]=up0, UP[k]=V[k-1].
-        UP = [up0] + [V[k] for k in range(N - 1)]
+        UP = with_start(up0, V[:N - 1])
 
         # ---- backward: partitioned Riccati over z = [x(8), u_prev(2)] ----
-        eT = X[N] - target
-        vx8 = 2.0 * Qt * eT                     # dV/dx
-        vu2 = jnp.zeros_like(up0)               # dV/du_prev
-        P = 2.0 * _diag_embed(Qt)               # (8, 8, L)
-        q = jnp.stack([jnp.stack([jnp.zeros_like(eT[0])] * 2)] * 8)
-        r = jnp.stack([jnp.stack([jnp.zeros_like(eT[0])] * 2)] * 2)
-        Ds, K1s, K2s, gns = [], [], [], []
-        for k in range(N - 1, -1, -1):
-            x = X[k]
-            v_k = V[k]
+        def backward_stage(c, inp):
+            vx8, vu2, P, q, r = c
+            x, v_k, up_k = inp
             Ad, Bd = rk4_jac8(x, v_k)
             e = x - target
-            du = v_k - UP[k]
+            du = v_k - up_k
             lx8 = 2.0 * Q * e
             lx2 = -2.0 * Rdu * du
             lv = 2.0 * Ru * v_k + 2.0 * Rdu * du
-            AdT = _mT(Ad)
-            BdT = _mT(Bd)
-            Qx8 = lx8 + _mv(AdT, vx8)
+            AdT = mT(Ad)
+            BdT = mT(Bd)
+            Qx8 = lx8 + mv(AdT, vx8)
             Qx2 = lx2
-            Qu = lv + _mv(BdT, vx8) + vu2
-            Qxx11 = _add_diag_vec(_mm(_mm(AdT, P), Ad), 2.0 * Q)
-            T2 = _mm(BdT, P) + _mT(q)            # (2, 8, L)
-            Qux1 = _mm(T2, Ad)                   # (2, 8, L)
+            Qu = lv + mv(BdT, vx8) + vu2
+            Qxx11 = add_diag_vec(mm(mm(AdT, P), Ad), 2.0 * Q)
+            T2 = mm(BdT, P) + mT(q)            # (2, 8, L)
+            Qux1 = mm(T2, Ad)                   # (2, 8, L)
             z_l = jnp.zeros_like(Rdu[0])
             Qux2 = jnp.stack([jnp.stack([-2.0 * Rdu[0], z_l]),
                               jnp.stack([z_l, -2.0 * Rdu[1]])])
-            Quu = _mm(T2, Bd) + _mm(BdT, q) + r
-            Quu = 0.5 * (Quu + _mT(Quu))
-            Quu = _add_diag_vec(Quu, 2.0 * (Ru + Rdu) + 1e-8)
+            Quu = mm(T2, Bd) + mm(BdT, q) + r
+            Quu = 0.5 * (Quu + mT(Quu))
+            Quu = add_diag_vec(Quu, 2.0 * (Ru + Rdu) + 1e-8)
 
             lo = u_lo - v_k
             hi = u_hi - v_k
-            d, free = _boxqp2_lanes(Quu, Qu, lo, hi)
-            gns.append(jnp.maximum(jnp.abs(d[0]), jnp.abs(d[1])))
+            d, free = boxqp2_stacked(Quu, Qu, lo, hi)
+            gn = jnp.maximum(jnp.abs(d[0]), jnp.abs(d[1]))
 
-            cols = _gains_lanes(
+            cols = gains2_stacked(
                 Quu, free,
                 [(Qux1[0, j], Qux1[1, j]) for j in range(8)]
                 + [(Qux2[0, j], Qux2[1, j]) for j in range(2)])
@@ -253,48 +236,51 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
             K2 = jnp.stack([jnp.stack([c[0] for c in k2cols]),
                             jnp.stack([c[1] for c in k2cols])])  # (2, 2, L)
 
-            w2 = _mv(Quu, d) + Qu
-            vx8 = Qx8 + _mv(_mT(K1), w2) + _mv(_mT(Qux1), d)
-            vu2 = Qx2 + _mv(_mT(K2), w2) + _mv(_mT(Qux2), d)
-            K1T_Quu = _mm(_mT(K1), Quu)          # (8, 2, L)
-            M = _mm(_mT(K1), Qux1)               # (8, 8, L)
-            P = Qxx11 + _mm(K1T_Quu, K1) + M + _mT(M)
-            P = 0.5 * (P + _mT(P))
-            q = (_mm(K1T_Quu, K2) + _mm(_mT(K1), Qux2)
-                 + _mm(_mT(Qux1), K2))
-            K2T_Quu = _mm(_mT(K2), Quu)
-            M2 = _mm(_mT(K2), Qux2)
-            r = _mm(K2T_Quu, K2) + M2 + _mT(M2)
-            r = _add_diag_vec(0.5 * (r + _mT(r)), 2.0 * Rdu)
-            Ds.append(d)
-            K1s.append(K1)
-            K2s.append(K2)
-        Ds = Ds[::-1]
-        K1s = K1s[::-1]
-        K2s = K2s[::-1]
+            w2 = mv(Quu, d) + Qu
+            vx8 = Qx8 + mv(mT(K1), w2) + mv(mT(Qux1), d)
+            vu2 = Qx2 + mv(mT(K2), w2) + mv(mT(Qux2), d)
+            K1T_Quu = mm(mT(K1), Quu)          # (8, 2, L)
+            M = mm(mT(K1), Qux1)               # (8, 8, L)
+            P = Qxx11 + mm(K1T_Quu, K1) + M + mT(M)
+            P = 0.5 * (P + mT(P))
+            q = (mm(K1T_Quu, K2) + mm(mT(K1), Qux2)
+                 + mm(mT(Qux1), K2))
+            K2T_Quu = mm(mT(K2), Quu)
+            M2 = mm(mT(K2), Qux2)
+            r = mm(K2T_Quu, K2) + M2 + mT(M2)
+            r = add_diag_vec(0.5 * (r + mT(r)), 2.0 * Rdu)
+            return (vx8, vu2, P, q, r), (d, K1, K2, gn)
+
+        zero = jnp.zeros_like(Qt[0])
+        init = (2.0 * Qt * (X[N] - target),          # dV/dx
+                jnp.zeros_like(up0),                  # dV/du_prev
+                2.0 * diag_embed(Qt),                 # (8, 8, L)
+                jnp.stack([jnp.stack([zero] * 2)] * 8),
+                jnp.stack([jnp.stack([zero] * 2)] * 2))
+        _, (Ds, K1s, K2s, gns) = jax.lax.scan(
+            backward_stage, init, (X[:N], V, UP), reverse=True)
 
         # ---- forward line search with per-lane acceptance ----
+        def forward(al):
+            def stage(c, inp):
+                x, up, cost = c
+                v_ref, d, K1, K2, x_ref, up_ref = inp
+                v = (v_ref + al * d + mv(K1, x - x_ref)
+                     + mv(K2, up - up_ref))
+                v = jnp.clip(v, u_lo, u_hi)
+                cost = cost + stage_cost(x, v, up)
+                x = rk4(x, v)
+                return (x, v, cost), (x, v)
+
+            (xN, _, cost), (xs, vs) = jax.lax.scan(
+                stage, (x0, up0, jnp.zeros_like(Ru[0])),
+                (V, Ds, K1s, K2s, X[:N], UP))
+            return with_start(x0, xs), vs, cost + terminal_cost(xN)
+
         accepted = done
         X_best, V_best, c_best = X, V, cost
         for al in alphas:
-            x = x0
-            up = up0
-            xs_new = [x0]
-            vs_new = []
-            c_new = jnp.zeros_like(Ru[0])
-            for k in range(N):
-                v = (V[k] + al * Ds[k] + _mv(K1s[k], x - X[k])
-                     + _mv(K2s[k], up - UP[k]))
-                v = jnp.clip(v, u_lo, u_hi)
-                c_new = c_new + stage_cost(x, v, up)
-                x = rk4(x, v)
-                up = v
-                xs_new.append(x)
-                vs_new.append(v)
-            e = x - target
-            c_new = c_new + jnp.sum(Qt * e * e, axis=0)
-            X_new = jnp.stack(xs_new)
-            V_new = jnp.stack(vs_new)
+            X_new, V_new, c_new = forward(al)
             newly = (~accepted) & (c_new < cost - 1e-12)
             m3 = newly[None, None, :]
             X_best = jnp.where(m3, X_new, X_best)
@@ -304,17 +290,12 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
 
         rel = (cost - c_best) / (jnp.abs(cost) + 1.0)
         done_n = done | (accepted & (rel < 1e-9)) | (~accepted)
-        gnorm = gns[0]
-        for g_k in gns[1:]:
-            gnorm = jnp.maximum(gnorm, g_k)
-        return (X_best, V_best, c_best, done_n, gnorm)
+        return (X_best, V_best, c_best, done_n, jnp.max(gns, axis=0))
 
     done = jnp.zeros_like(cost, dtype=jnp.bool_)
     carry = (X, V, cost, done, jnp.zeros_like(cost))
-    # Small budgets unroll (warm path, cache-stable program); robust
-    # budgets roll via fori_loop — one compiled iteration body instead of
-    # n_iters copies (VERDICT r2 next-6 compile-time work). Results agree
-    # to f32 roundoff (fusion choices may differ per copy).
+    # Small budgets unroll; robust budgets roll via fori_loop — one
+    # compiled iteration body instead of n_iters copies.
     roll = (n_iters > 3) if roll_loops is None else roll_loops
     if not roll:
         for _ in range(n_iters):
@@ -323,60 +304,24 @@ def _lmpc_kernel(N, n_iters, n_alphas, dt, roll_loops,
         carry = jax.lax.fori_loop(0, n_iters, lambda _, c: iteration(c),
                                   carry)
     _, V, cost, _, gnorm = carry
-    V_out[...] = V
-    cost_out[...] = cost[None]
-    # max |feedforward| of the LAST iteration — free in-kernel convergence
-    # diagnostic (the XLA path's grad_norm).
-    gnorm_out[...] = gnorm[None]
+    # gnorm: max |feedforward| of the LAST iteration (the generic solver's
+    # grad_norm).
+    return V, cost, gnorm
 
 
 @functools.partial(jax.jit, static_argnames=("n_iters", "n_alphas", "dt",
-                                             "u_bound", "interpret",
-                                             "roll_loops"))
-def lmpc_solve_pallas(pvec, Q, R, Qt, target, z0, V0,
-                      dt: float, u_bound: float = 0.4,
-                      n_iters: int = 2, n_alphas: int = 3,
-                      interpret: bool = False, roll_loops=None):
-    """Batch-last layout: pvec (34,Bt), Q/Qt/target (8,Bt), R (4,Bt),
-    z0 (10,Bt), V0 (N,2,Bt), Bt % 128 == 0. Returns (V, cost, gnorm)."""
-    N = V0.shape[0]
-    Bt = V0.shape[-1]
-    assert Bt % LANES == 0
+                                             "u_bound", "roll_loops"))
+def lmpc_solve(pvec, Q, R, Qt, target, z0, V0, dt: float,
+               u_bound: float = 0.4, n_iters: int = 2, n_alphas: int = 3,
+               roll_loops=None):
+    """Batch-last layout: pvec (34,B), Q/Qt/target (8,B), R (4,B),
+    z0 (10,B), V0 (N,2,B). Returns (V, cost, gnorm)."""
     dtype = V0.dtype
-    lo = jnp.full((2, Bt), -u_bound, dtype)
-    hi = jnp.full((2, Bt), u_bound, dtype)
-    V0 = jnp.clip(V0, -u_bound, u_bound)
-
-    kernel = functools.partial(_lmpc_kernel, N, n_iters, n_alphas, dt,
-                               roll_loops)
-
-    # Batch folded onto (S, 128) sublane x lane tiles (full f32 vregs per
-    # "lane scalar", 1024 scenarios/tile) when the batch allows; the kernel
-    # body is shape-polymorphic over the trailing tile dims.
-    S = 8 if Bt % (8 * LANES) == 0 else 1
-    G = Bt // (S * LANES)
-
-    def fold(x):
-        return x.reshape(*x.shape[:-1], G * S, LANES)
-
-    def spec(shape):
-        def imap(i):
-            return tuple([0] * (len(shape) - 1) + [i, 0])
-        block = tuple(list(shape[:-1]) + [S, LANES])
-        return pl.BlockSpec(block, imap, memory_space=pltpu.VMEM)
-
-    V, cost, gnorm = pl.pallas_call(
-        kernel,
-        grid=(G,),
-        in_specs=[spec((34, Bt)), spec((8, Bt)), spec((4, Bt)),
-                  spec((8, Bt)), spec((8, Bt)), spec((10, Bt)),
-                  spec((N, 2, Bt)), spec((2, Bt)), spec((2, Bt))],
-        out_specs=[spec((N, 2, Bt)), spec((1, Bt)), spec((1, Bt))],
-        out_shape=[jax.ShapeDtypeStruct((N, 2, G * S, LANES), dtype),
-                   jax.ShapeDtypeStruct((1, G * S, LANES), dtype),
-                   jax.ShapeDtypeStruct((1, G * S, LANES), dtype)],
-        interpret=interpret,
-    )(fold(pvec.astype(dtype)), fold(Q.astype(dtype)), fold(R.astype(dtype)),
-      fold(Qt.astype(dtype)), fold(target.astype(dtype)),
-      fold(z0.astype(dtype)), fold(V0), fold(lo), fold(hi))
-    return V.reshape(N, 2, Bt), cost.reshape(Bt), gnorm.reshape(Bt)
+    B = V0.shape[-1]
+    lo = jnp.full((2, B), -u_bound, dtype)
+    hi = jnp.full((2, B), u_bound, dtype)
+    return _lmpc_body(V0.shape[0], n_iters, n_alphas, dt, roll_loops,
+                      pvec.astype(dtype), Q.astype(dtype), R.astype(dtype),
+                      Qt.astype(dtype), target.astype(dtype),
+                      z0.astype(dtype), jnp.clip(V0, -u_bound, u_bound),
+                      lo, hi)

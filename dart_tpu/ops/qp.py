@@ -5,7 +5,7 @@
 Replaces IPOPT on the per-arm impedance QP (7 vars, 21 two-sided
 constraints, `PMPC/src/controller/arm.py:338-424`) — but instead of one
 process per arm per solve, thousands of these QPs batch under `vmap` (two
-arms x scenario batch) as dense 7x7 factorisations on the VPU.
+arms x scenario batch) as dense 7x7 factorisations.
 
 Fixed-iteration ADMM with over-relaxation; warm-startable with (x, y, z)
 from the previous control step (the reference warm-starts IPOPT with primal

@@ -8,8 +8,9 @@ along named mesh axes, so multi-host is the SAME code over a bigger mesh:
     init_distributed()            # once per process, before device use
     mesh = global_mesh()          # all devices across all hosts
 
-Collectives (`psum` sweep aggregates, `pmean` PPO gradients) then ride ICI
-within a slice and DCN across hosts — the multi-node story the reference
+Collectives (`psum` sweep aggregates, `pmean` PPO gradients) then ride the
+device interconnect within a host and the network across hosts — the
+multi-node story the reference
 does not have (SURVEY.md section 2.6: "no multi-node anything").
 """
 

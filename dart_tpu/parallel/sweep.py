@@ -4,8 +4,8 @@ Where the reference's "distributed backend" is one host's worth of
 processes and shared memory (SURVEY.md section 2.6), here a scenario batch
 (18-config grid x targets x ensembles) shards over a `jax.sharding.Mesh`
 axis; each device runs its shard of closed-loop episodes under `vmap`, and
-aggregate statistics reduce with `psum` over ICI. Multi-host extends the
-same mesh via `jax.distributed.initialize` — no code change.
+aggregate statistics reduce with `psum` over the interconnect. Multi-host
+extends the same mesh via `jax.distributed.initialize` — no code change.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from dart_tpu.io.scenes import ScenarioBatch, pad_to_multiple
+from dart_tpu.ops.pallas.pmpc_solve import BLOCK
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "scenario") -> Mesh:
@@ -49,12 +50,13 @@ def run_sweep(evaluate: Callable, batch: ScenarioBatch, mesh: Mesh,
 
 def run_sweep_batched(evaluate_batch: Callable, batch: ScenarioBatch,
                       mesh: Mesh, axis: str = "scenario",
-                      lane_multiple: int = 128):
+                      lane_multiple: int = BLOCK):
     """Batch-major sweep: each device runs its WHOLE scenario shard through
     one batched evaluator call (e.g. `make_rmpc_batch_evaluator`) instead of
-    vmapped per-scenario episodes. Shards are padded to `lane_multiple` so
-    the whole-solve Pallas kernels engage (128-lane tiles on TPU); the mesh
-    axis stays pure data parallelism with a psum only at the aggregate.
+    vmapped per-scenario episodes. Shards are padded to `lane_multiple`
+    scenarios — by default one Triton block of the PMPC whole-solve kernel,
+    so its wrapper adds no padding of its own; the mesh axis stays pure
+    data parallelism with a psum only at the aggregate.
 
     `evaluate_batch(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
     -> PMPCScenarioResult` with per-lane metrics.

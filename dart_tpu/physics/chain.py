@@ -117,6 +117,12 @@ def make_xarm7_chain(world_pos=(0.0, 0.0, 0.0), world_quat=(1.0, 0.0, 0.0, 0.0),
     )
 
 
+# Full-precision products: a GPU may otherwise run float32 matmuls in TF32,
+# which moved the forward dynamics by ~1e-4 relative on an H100 (PERF.md).
+def mm(a, b):
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _rz(theta):
     c, s = jnp.cos(theta), jnp.sin(theta)
     z = jnp.zeros_like(theta)
@@ -141,10 +147,10 @@ def fk(params: ChainParams, q: jnp.ndarray) -> FK:
     Rs, ps = [], []
     for i in range(8):
         R_off = quat_to_matrix(params.body_quat[i])
-        p_i = p_par + R_par @ params.body_pos[i]
-        R_i0 = R_par @ R_off
+        p_i = p_par + mm(R_par, params.body_pos[i])
+        R_i0 = mm(R_par, R_off)
         if i < N_JOINTS:
-            R_i = R_i0 @ _rz(q[i])
+            R_i = mm(R_i0, _rz(q[i]))
         else:
             R_i = R_i0
         Rs.append(R_i)
@@ -153,7 +159,8 @@ def fk(params: ChainParams, q: jnp.ndarray) -> FK:
     R = jnp.stack(Rs)
     p = jnp.stack(ps)
     axis = R[:N_JOINTS, :, 2]      # z column (Rz commutes with z axis)
-    com = p + jnp.einsum("bij,bj->bi", R, params.com)
+    com = p + jnp.einsum("bij,bj->bi", R, params.com,
+                         precision=jax.lax.Precision.HIGHEST)
     return FK(R=R, p=p, axis=axis, com=com)
 
 
@@ -183,8 +190,8 @@ def mass_matrix(params: ChainParams, q: jnp.ndarray) -> jnp.ndarray:
         body = min(i, 7)
         J6 = point_jacobian(f, f.com[i], body)
         Jv, Jw = J6[:3], J6[3:]
-        I_w = f.R[i] @ params.inertia[i] @ f.R[i].T
-        M = M + params.mass[i] * Jv.T @ Jv + Jw.T @ I_w @ Jw
+        I_w = mm(mm(f.R[i], params.inertia[i]), f.R[i].T)
+        M = M + params.mass[i] * mm(Jv.T, Jv) + mm(mm(Jw.T, I_w), Jw)
     return 0.5 * (M + M.T)
 
 
@@ -199,8 +206,10 @@ def bias_forces(params: ChainParams, q: jnp.ndarray,
 
     h = Mdot qd - dT/dq + dV/dq, each term by autodiff of FK.
     """
-    _, Mdot_qd = jax.jvp(lambda q_: mass_matrix(params, q_) @ qd, (q,), (qd,))
-    dTdq = jax.grad(lambda q_: 0.5 * qd @ mass_matrix(params, q_) @ qd)(q)
+    _, Mdot_qd = jax.jvp(lambda q_: mm(mass_matrix(params, q_), qd), (q,),
+                         (qd,))
+    dTdq = jax.grad(lambda q_: 0.5 * mm(mm(qd, mass_matrix(params, q_)),
+                                        qd))(q)
     dVdq = jax.grad(lambda q_: potential_energy(params, q_))(q)
     return Mdot_qd - dTdq + dVdq
 
@@ -216,7 +225,7 @@ def jac_and_jacdot(params: ChainParams, q: jnp.ndarray, qd: jnp.ndarray,
         f = fk(params, q_)
         point = f.p[body]
         if local_offset is not None:
-            point = point + f.R[body] @ jnp.asarray(local_offset, q.dtype)
+            point = point + mm(f.R[body], jnp.asarray(local_offset, q.dtype))
         return point_jacobian(f, point, body)
 
     J, Jdot = jax.jvp(jac_of, (q,), (qd,))
@@ -235,9 +244,10 @@ def forward_dynamics(params: ChainParams, q: jnp.ndarray, qd: jnp.ndarray,
         f = fk(params, q)
         point = f.p[ee_body]
         if ee_offset is not None:
-            point = point + f.R[ee_body] @ jnp.asarray(ee_offset, q.dtype)
+            point = point + mm(f.R[ee_body], jnp.asarray(ee_offset,
+                                                         q.dtype))
         J = point_jacobian(f, point, ee_body)
-        rhs = rhs + J.T @ f_ext
+        rhs = rhs + mm(J.T, f_ext)
     return jnp.linalg.solve(M, rhs)
 
 

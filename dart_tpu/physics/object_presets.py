@@ -46,8 +46,8 @@ def make_preset_params(name: str, mu: float = 0.3,
     ``calibrated`` (default) applies the MuJoCo-measured tray lag and
     transfers the tray-contact dissipation calibration: rollers get the
     sphere/cylinder rolling resistance, sliders the cube tangential
-    damping (`tray_object.CALIBRATED_*`, docs/PERFORMANCE.md r3
-    re-baseline). Pass False for the undamped legacy plant.
+    damping (`tray_object.CALIBRATED_*`, the r3 re-baseline). Pass False
+    for the undamped legacy plant.
     """
     m0, hx, hy, hcom, kx, ky, tx, ty = PRESETS[name]
     a = lambda x: jnp.asarray(x, dtype)

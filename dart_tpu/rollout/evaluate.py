@@ -288,7 +288,7 @@ def _tray_params(shape_kappa_inv, mass, mu, dtype, tray_lag=None):
     response measurably depends on the carried mass) plus the per-shape
     MuJoCo-fitted contact dissipation (r3 re-baseline); pass
     `to_mod.LEGACY_TRAY_LAG` to reproduce r1/r2 artifacts (optimistic
-    lag, no dissipation — docs/PERFORMANCE.md)."""
+    lag, no dissipation)."""
     calibrated = tray_lag is None
     lag = to_mod.calibrated_lag(mass, dtype) if calibrated else tray_lag
     omega_n, zeta = lag[0], lag[1]
@@ -524,11 +524,11 @@ def make_pmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
                               use_kernel: bool = True, kernel_iters: int = 2,
                               kernel_alphas: int = 3, tray_lag=None):
     """Batch-major PMPC evaluator: B scenarios in ONE jitted scan, one
-    `PMPCBatch.solve` per control step — the whole-solve Pallas kernel
-    (`ops.pallas.pmpc_solve`) on TPU when B % 128 == 0. Per-object weight
-    tables selected per lane, matching `make_pmpc_evaluator`. `max_iters`
-    governs the XLA fallback path; `kernel_iters`/`kernel_alphas` the
-    kernel budget (under-converged lanes self-escalate, see PMPCBatch)."""
+    `PMPCBatch.solve` per control step — the whole-solve Triton kernel
+    (`ops.pallas.pmpc_solve`) on a GPU. Per-object weight tables selected
+    per lane, matching `make_pmpc_evaluator`. `max_iters` governs the
+    adaptive XLA solver (CPU); `kernel_iters`/`kernel_alphas` the kernel
+    budget (under-converged lanes self-escalate, see PMPCBatch)."""
     # Controller Ts = sim dt, as in make_pmpc_evaluator (reference
     # discretization; the r1/r2 150 ms-horizon variant winds up on the
     # calibrated plant).
@@ -599,17 +599,15 @@ def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
                               kernel_iters: int = 6, kernel_alphas: int = 4,
                               kernel_al_rounds: int = 3,
                               kernel_max_extra_rounds: int = 2,
-                              kernel_interpret: bool = False,
                               kernel_xla_fallback: bool = True,
                               tray_lag=None):
     """Batch-major RMPC evaluator: B scenarios advance in ONE jitted scan.
 
     Where `make_rmpc_evaluator` is a per-scenario episode to be vmapped,
     here the whole scenario batch shares one `RMPCBatch.solve_batched` per
-    control step — on TPU with B % 128 == 0 that is the whole-solve Pallas
-    kernel (`ops.pallas.rmpc_solve`), so a full 18-config x target sweep
-    runs its RLS + governor + constrained solves without leaving the
-    device. Freeze-at-convergence matches the per-instance evaluator
+    control step — on a GPU that is the fixed-budget whole-solve body
+    (`ops.rmpc_solve`), so a full 18-config x target sweep runs its RLS +
+    governor + constrained solves without leaving the device. Freeze-at-convergence matches the per-instance evaluator
     (`rob_ctrl.py:391-414` semantics), applied per lane.
 
     The kernel budget defaults are deliberately HIGHER than RMPCBatch's
@@ -629,7 +627,6 @@ def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
         kernel_iters=kernel_iters, kernel_alphas=kernel_alphas,
         kernel_al_rounds=kernel_al_rounds,
         kernel_max_extra_rounds=kernel_max_extra_rounds,
-        kernel_interpret=kernel_interpret,
         kernel_xla_fallback=kernel_xla_fallback)
     step_plant = jax.vmap(to_mod.step, in_axes=(0, 0, 0, None))
 

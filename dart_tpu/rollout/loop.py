@@ -1,4 +1,4 @@
-"""Jit-compiled closed-loop engine: the TPU replacement for the reference's
+"""Jit-compiled closed-loop engine: the replacement for the reference's
 real-time process orchestration.
 
 One `lax.scan` step = {observe -> (solve | hold) -> apply -> plant step},

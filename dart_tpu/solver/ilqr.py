@@ -1,6 +1,6 @@
 """Batched constrained trajectory optimisation: box-DDP + augmented Lagrangian.
 
-This module is the TPU-native replacement for every CasADi+IPOPT NLP in the
+This module is the batched replacement for every CasADi+IPOPT NLP in the
 reference (`PMPC/src/controller/mpc_3d.py:81-85`,
 `RMPC/dev_dual/controller/np_mpc_adaptive_with_linear_regressor.py:157-162`,
 `LMPC/src/controller/rlmpc2.py:479-491`). Where IPOPT solves the sparse
@@ -172,6 +172,11 @@ def _linearize(ocp: OCPDef, params, aux, Z, V, lam, mu):
     return A, B, lx, lu, lxx, lux, luu, gx, gxx
 
 
+# Full-precision products: a GPU may otherwise run float32 matmuls in TF32,
+# which moves the solutions of these small, badly scaled problems.
+mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+
+
 def _backward(derivs, V, u_lo, u_hi, reg):
     """Riccati sweep with per-stage exact box QP (control-limited DDP)."""
     A, B, lx, lu, lxx, lux, luu, gx, gxx = derivs
@@ -182,12 +187,12 @@ def _backward(derivs, V, u_lo, u_hi, reg):
     def stage(carry, inp):
         Vx, Vxx, dV1, dV2 = carry
         A_k, B_k, lx_k, lu_k, lxx_k, lux_k, luu_k, v_k = inp
-        Qx = lx_k + A_k.T @ Vx
-        Qu = lu_k + B_k.T @ Vx
+        Qx = lx_k + mm(A_k.T, Vx)
+        Qu = lu_k + mm(B_k.T, Vx)
         Vxx_reg = Vxx + reg * eye
-        Qxx = lxx_k + A_k.T @ Vxx @ A_k
-        Qux = lux_k + B_k.T @ Vxx_reg @ A_k
-        Quu = luu_k + B_k.T @ Vxx_reg @ B_k
+        Qxx = lxx_k + mm(mm(A_k.T, Vxx), A_k)
+        Qux = lux_k + mm(mm(B_k.T, Vxx_reg), A_k)
+        Quu = luu_k + mm(mm(B_k.T, Vxx_reg), B_k)
         Quu = 0.5 * (Quu + Quu.T) + 1e-9 * jnp.eye(nu, dtype=V.dtype)
 
         lo = u_lo - v_k
@@ -197,11 +202,11 @@ def _backward(derivs, V, u_lo, u_hi, reg):
         H = Quu * free[:, None] * free[None, :] + jnp.diag(1.0 - free)
         K = -jnp.linalg.solve(H, Qux * free[:, None])
 
-        Vx_n = Qx + K.T @ Quu @ d + K.T @ Qu + Qux.T @ d
-        Vxx_n = Qxx + K.T @ Quu @ K + K.T @ Qux + Qux.T @ K
+        Vx_n = Qx + mm(mm(K.T, Quu), d) + mm(K.T, Qu) + mm(Qux.T, d)
+        Vxx_n = Qxx + mm(mm(K.T, Quu), K) + mm(K.T, Qux) + mm(Qux.T, K)
         Vxx_n = 0.5 * (Vxx_n + Vxx_n.T)
-        dV1_n = dV1 + Qu @ d
-        dV2_n = dV2 + 0.5 * d @ Quu @ d
+        dV1_n = dV1 + mm(Qu, d)
+        dV2_n = dV2 + 0.5 * mm(mm(d, Quu), d)
         return (Vx_n, Vxx_n, dV1_n, dV2_n), (d, K)
 
     init = (gx, gxx, jnp.zeros((), V.dtype), jnp.zeros((), V.dtype))
@@ -215,7 +220,7 @@ def _forward(ocp, params, aux, Z, V, D, Ks, lam, mu, alpha, u_lo, u_hi):
     """Closed-loop rollout with clamped controls at step length alpha."""
     def f(z, inp):
         z_ref, v_ref, d, K = inp
-        v = jnp.clip(v_ref + alpha * d + K @ (z - z_ref), u_lo, u_hi)
+        v = jnp.clip(v_ref + alpha * d + mm(K, z - z_ref), u_lo, u_hi)
         zn = ocp.step(z, v, params)
         return zn, (zn, v)
 
@@ -311,15 +316,13 @@ def _batch_axes(tree, B: int):
                         and x.shape[0] == B) else None, tree)
 
 
-@functools.partial(jax.jit, static_argnames=("ocp", "cfg", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("ocp", "cfg"))
 def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: jnp.ndarray,
-                V_init: jnp.ndarray, use_pallas: bool = True):
+                V_init: jnp.ndarray):
     """Batch-major unconstrained solve (PMPC/LMPC-style OCPs, n_con == 0).
 
-    Unlike `vmap(solve)`, the Riccati backward pass here runs as ONE fused
-    Pallas kernel over the whole batch (`dart_tpu.ops.pallas.riccati`) when
-    `use_pallas` and the batch is a multiple of 128 on a TPU backend;
-    linearisation and line-search stay vmapped XLA. Per-lane regularisation,
+    Linearisation, backward pass and line search are vmapped over the
+    batch, with whole-batch control flow. Per-lane regularisation,
     acceptance and convergence masks reproduce `solve`'s control flow, and
     constrained OCPs (n_con > 0) run the augmented-Lagrangian outer loop
     with per-lane multipliers/penalties.
@@ -333,9 +336,6 @@ def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: jnp.ndarray,
     u_hi = jnp.asarray(ocp.u_hi, dtype)
     V = jnp.clip(V_init, u_lo, u_hi)
     n_con = max(ocp.n_con, 1)   # placeholder width when unconstrained
-
-    pallas_ok = use_pallas and nu == 2 and B % 128 == 0 and \
-        jax.default_backend() == "tpu"
 
     # Map only leaves that actually carry the batch axis (scalar params like
     # a shared dt broadcast automatically) — see _batch_axes caveat.
@@ -354,12 +354,6 @@ def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: jnp.ndarray,
                      in_axes=(a_ax, 0, 0))
 
     def backward(derivs, V, reg):
-        if pallas_ok:
-            from dart_tpu.ops.pallas.riccati import riccati_backward_pallas
-            tl = lambda x: jnp.moveaxis(x, 0, -1)
-            D, K = riccati_backward_pallas(
-                *[tl(d) for d in derivs], tl(V), u_lo, u_hi, reg)
-            return jnp.moveaxis(D, -1, 0), jnp.moveaxis(K, -1, 0)
         D, K, _, _ = jax.vmap(
             lambda d, v, r: _backward(d, v, u_lo, u_hi, r))(derivs, V, reg)
         return D, K

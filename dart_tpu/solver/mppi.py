@@ -2,7 +2,7 @@
 
 A derivative-free alternative to the box-DDP solver for the same OCPs:
 K perturbed control sequences roll out in parallel (`vmap` over the ensemble
-axis — thousands of rollouts per solve are nearly free on TPU), costs are
+axis — thousands of rollouts per solve batch into one program), costs are
 exponentially weighted (softmin with temperature lambda), and the nominal
 sequence updates toward the weighted average. Covers the reference-baseline
 "MPPI-style rollout ensembles per solve" evaluation mode and is robust to

@@ -18,9 +18,10 @@ constant matrices Ad, Sd (per-lane functions of mu only), so
   disappears.
 
 `solve_batch_fast` runs the same box-DDP iteration as `ilqr.solve_batch`
-(same backward pass, same Pallas kernel, same backtracking acceptance) and
-produces the same solutions — validated against the generic path in
-`tests/test_pmpc_fast.py`.
+(same backward pass, same backtracking acceptance) and produces the same
+solutions — validated against the generic path in `tests/test_pmpc_fast.py`.
+`solve_batch_kernel` runs the fixed-budget whole solve of
+`ops.pallas.pmpc_solve` on the same closed-form operators.
 """
 
 from __future__ import annotations
@@ -67,6 +68,17 @@ def _affine_discretization(mu, g, dt):
     return Ad, Sd
 
 
+# The XLA solver's contractions run at full float32 precision: on a GPU the
+# default may be TF32, which moved its solutions by ~1e-2 relative on an
+# H100 (PERF.md). The operators above need no such care (bitwise equal).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _bmv(M, x):
+    """Batched matrix-vector product (B,i,j) x (B,j) -> (B,i)."""
+    return jnp.einsum("bij,bj->bi", M, x, precision=_HIGHEST)
+
+
 def _c_of_u(u, g, dt):
     """Input drive c(u) (..., 6)."""
     s0, s1 = jnp.sin(u[..., 0]), jnp.sin(u[..., 1])
@@ -87,22 +99,17 @@ def _dcdu(u, g, dt):
 
 
 @functools.partial(jax.jit, static_argnames=("dt", "u_bound", "n_iters",
-                                             "n_alphas", "g", "interpret"))
+                                             "n_alphas", "g", "route"))
 def solve_batch_kernel(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
-                       V_init: jnp.ndarray, dt: float = 0.002,
+                       V_init: jnp.ndarray, *, route: str, dt: float = 0.002,
                        u_bound: float = 0.6, n_iters: int = 2,
-                       n_alphas: int = 3, g: float = dyn.GRAVITY_Z,
-                       interpret: bool = False):
-    """Whole-solve Pallas kernel path (batch-first API).
-
-    The entire box-DDP solve runs inside ONE Pallas kernel per 128-lane tile
-    (`ops.pallas.pmpc_solve`): ~3M warm solves/s/chip in closed loop at
-    B=4096 on v5e. Requires TPU and B % 128 == 0; fixed iteration budget
-    (2 iterations suffice warm — quality identical, see PERFORMANCE.md).
-    Returns (V (B,N,2), cost (B,), gnorm (B,) — in-kernel max
-    |feedforward| of the last iteration, the convergence diagnostic).
+                       n_alphas: int = 3, g: float = dyn.GRAVITY_Z):
+    """Fixed-budget whole solve (batch-first API) through `route`
+    (`ops.route`): the Triton kernel, or the same body under XLA or the
+    Pallas interpreter. Any B. Returns (V (B,N,2), cost (B,), gnorm (B,) —
+    max |feedforward| of the last iteration, the convergence diagnostic).
     """
-    from dart_tpu.ops.pallas.pmpc_solve import pmpc_solve_pallas
+    from dart_tpu.ops.pallas.pmpc_solve import pmpc_solve
 
     dtype = V_init.dtype
     gq = jnp.asarray(g, dtype)
@@ -110,21 +117,20 @@ def solve_batch_kernel(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
     wdiag = (aux.Qp[:, None] * jnp.asarray([1, 0, 1, 0, 0, 0], dtype) +
              aux.Qv[:, None] * jnp.asarray([0, 1, 0, 1, 0, 0], dtype))
     tl = lambda x: jnp.moveaxis(x, 0, -1)
-    V, cost, gnorm = pmpc_solve_pallas(
+    V, cost, gnorm = pmpc_solve(
         tl(Ad), tl(Sd), tl(wdiag), aux.R.astype(dtype), tl(aux.target),
-        tl(z0), tl(V_init), dt=dt, u_bound=u_bound,
-        g=float(g), n_iters=n_iters, n_alphas=n_alphas,
-        interpret=interpret)
+        tl(z0), tl(V_init), dt=dt, u_bound=u_bound, g=float(g),
+        n_iters=n_iters, n_alphas=n_alphas, route=route)
     return jnp.moveaxis(V, -1, 0), cost, gnorm
 
 
 @functools.partial(jax.jit, static_argnames=("dt", "u_bound", "max_iters",
-                                             "n_alphas", "use_pallas"))
+                                             "n_alphas"))
 def solve_batch_fast(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
                      V_init: jnp.ndarray, dt: float = 0.002,
                      u_bound: float = 0.6, g: float = dyn.GRAVITY_Z,
                      max_iters: int = 4, n_alphas: int = 8,
-                     tol_cost: float = 1e-9, use_pallas: bool = True):
+                     tol_cost: float = 1e-9):
     """Batched PMPC solve with closed-form linearisation.
 
     Args: mu (B,), aux leaves (B, ...) per PMPCAux, z0 (B, 6),
@@ -151,8 +157,7 @@ def solve_batch_fast(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
 
     def rollout(V):
         def f(x, v):
-            xn = jnp.einsum("bij,bj->bi", Ad, x) + \
-                jnp.einsum("bij,bj->bi", Sd, _c_of_u(v, gq, dt))
+            xn = _bmv(Ad, x) + _bmv(Sd, _c_of_u(v, gq, dt))
             return xn, xn
 
         _, Zs = jax.lax.scan(f, z0, jnp.swapaxes(V, 0, 1))
@@ -168,7 +173,8 @@ def solve_batch_fast(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
         e = Z[:, :-1] - aux.target[:, None, :]
         lx = 2.0 * wdiag[:, None, :] * e                      # (B,N,6)
         lu = 2.0 * aux.R[:, None, None] * V                   # (B,N,2)
-        Bmat = jnp.einsum("bij,bnjm->bnim", Sd, _dcdu(V, gq, dt))
+        Bmat = jnp.einsum("bij,bnjm->bnim", Sd, _dcdu(V, gq, dt),
+                          precision=_HIGHEST)
         A = jnp.broadcast_to(Ad[:, None], (B, N, 6, 6))
         lxx_b = jnp.broadcast_to(lxx[:, None], (B, N, 6, 6))
         luu_b = jnp.broadcast_to(luu[:, None], (B, N, 2, 2))
@@ -177,16 +183,7 @@ def solve_batch_fast(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
         gx = 2.0 * wdiag * eT
         return A, Bmat, lx, lu, lxx_b, lux_b, luu_b, gx, gxx
 
-    pallas_ok = use_pallas and B % 128 == 0 and \
-        jax.default_backend() == "tpu"
-
     def backward(derivs, V, reg):
-        if pallas_ok:
-            from dart_tpu.ops.pallas.riccati import riccati_backward_pallas
-            tl = lambda x: jnp.moveaxis(x, 0, -1)
-            D, K = riccati_backward_pallas(
-                *[tl(d) for d in derivs], tl(V), u_lo, u_hi, reg)
-            return jnp.moveaxis(D, -1, 0), jnp.moveaxis(K, -1, 0)
         D, K, _, _ = jax.vmap(lambda d, v, r: ilqr._backward(
             d, v, u_lo, u_hi, r))(derivs, V, reg)
         return D, K
@@ -194,10 +191,9 @@ def solve_batch_fast(mu: jnp.ndarray, aux: PMPCAux, z0: jnp.ndarray,
     def forward(Z, V, D, K, al):
         def f(x, inp):
             z_ref, v_ref, d, Kk = inp
-            v = jnp.clip(v_ref + al[:, None] * d +
-                         jnp.einsum("bij,bj->bi", Kk, x - z_ref), u_lo, u_hi)
-            xn = jnp.einsum("bij,bj->bi", Ad, x) + \
-                jnp.einsum("bij,bj->bi", Sd, _c_of_u(v, gq, dt))
+            v = jnp.clip(v_ref + al[:, None] * d + _bmv(Kk, x - z_ref),
+                         u_lo, u_hi)
+            xn = _bmv(Ad, x) + _bmv(Sd, _c_of_u(v, gq, dt))
             return xn, (xn, v)
 
         swap = lambda a: jnp.swapaxes(a, 0, 1)

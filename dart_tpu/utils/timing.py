@@ -4,7 +4,7 @@
 - `Stopwatch`: wall-clock stage timers with mean/p50/p99 summaries (the
   `solve_time` channel of `main_parallel.py:39-43` and more).
 - `trace(...)`: context manager around `jax.profiler` emitting a TensorBoard
-  trace directory for kernel-level inspection on TPU.
+  trace directory for kernel-level inspection on the device.
 - `timed_call`: block-until-ready timing of a jitted callable (compile time
   and steady-state separated).
 """

@@ -1,6 +1,6 @@
 // Native async telemetry runtime: lock-free SPSC ring buffer + writer thread.
 //
-// The TPU-native replacement for the reference's logging/video *processes*
+// The replacement for the reference's logging/video *processes*
 // (`PMPC/src/logger.py:10-148` AsyncLogger, `main_parallel_enhanced.py:58-103`
 // VideoWriterProcess, SURVEY.md P4/P5): the Python host thread that drives
 // device steps pushes fixed-size binary records into a preallocated ring with

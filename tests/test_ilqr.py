@@ -198,7 +198,8 @@ def test_lmpc_matches_slsqp():
 
 
 def test_solver_vmap_batch():
-    """Batched solves (the TPU execution model) equal per-sample solves."""
+    """Batched solves (the batch-major execution model) equal per-sample
+    solves."""
     N, B = 8, 5
     o = ocp_mod.make_pmpc_ocp(dt=0.02, u_bound=0.6)
     rng = np.random.default_rng(5)
@@ -243,7 +244,7 @@ def test_projected_grad_norm_and_constraint_max():
                           Qv=jnp.full((B,), 2.0, dtype),
                           R=jnp.full((B,), 0.2, dtype))
     sol = ilqr.solve_batch(ocp, cfg, params, aux, states,
-                           jnp.zeros((B, 15, 2), dtype), use_pallas=False)
+                           jnp.zeros((B, 15, 2), dtype))
     pg_conv = ilqr.projected_grad_norm(ocp, params, aux, states, sol.V)
     assert float(jnp.max(pg_conv)) < 1e-4, float(jnp.max(pg_conv))
     # a zeroed (unsolved) trajectory is far from stationary

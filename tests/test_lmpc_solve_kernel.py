@@ -1,11 +1,11 @@
-"""Whole-solve LMPC Pallas kernel: parity with the generic batch solver on
-the same OCP at a matched iteration budget (interpreter mode on CPU)."""
+"""Fixed-budget LMPC whole-solve body: parity with the generic batch solver
+on the same OCP at a matched iteration budget."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from dart_tpu.control.mpc import LMPC_DEFAULT_WEIGHTS
-from dart_tpu.ops.pallas.lmpc_solve import lmpc_solve_pallas
+from dart_tpu.ops.lmpc_solve import lmpc_solve
 from dart_tpu.solver import ilqr
 from dart_tpu.solver.ocp import LMPCAux, make_lmpc_ocp
 
@@ -14,7 +14,7 @@ U_BOUND = 0.4
 
 
 def test_whole_solve_kernel_matches_generic_solver():
-    B, N = 128, 6   # small horizon: interpreter mode is slow
+    B, N = 128, 6   # small horizon keeps the CPU compile short
     rng = np.random.default_rng(1)
     pvecs = jnp.asarray(rng.uniform(0.05, 0.5, (B, 34)), jnp.float32)
     tmask = np.array([1, 0, 1, 0, 0, 0, 0, 0], np.float32)
@@ -30,13 +30,12 @@ def test_whole_solve_kernel_matches_generic_solver():
     ocp = make_lmpc_ocp(dt=DT, u_bound=U_BOUND)
     cfg = ilqr.ILQRConfig(max_iters=2, n_alphas=3, reg_init=1e-9,
                           tol_cost=1e-9)
-    sol = ilqr.solve_batch(ocp, cfg, pvecs, aux, z0, V0, use_pallas=False)
+    sol = ilqr.solve_batch(ocp, cfg, pvecs, aux, z0, V0)
 
     tl = lambda x: jnp.moveaxis(jnp.asarray(x), 0, -1)
-    V_p, cost_p, gnorm_p = lmpc_solve_pallas(
+    V_p, cost_p, gnorm_p = lmpc_solve(
         tl(pvecs), tl(aux.Q), tl(aux.R), tl(aux.Qt), tl(tgts), tl(z0),
-        tl(V0), dt=DT, u_bound=U_BOUND, n_iters=2, n_alphas=3,
-        interpret=True)
+        tl(V0), dt=DT, u_bound=U_BOUND, n_iters=2, n_alphas=3)
     V_p = jnp.moveaxis(V_p, -1, 0)
 
     # Same iteration budget, same problem: costs agree tightly.

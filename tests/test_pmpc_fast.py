@@ -52,9 +52,9 @@ def test_fast_solver_matches_generic():
     ocp = make_pmpc_ocp(dt=DT, u_bound=0.6)
     params = dyn.PMPCParams(mu=mus, dt=jnp.full(B, DT))
     ref = ilqr.solve_batch(ocp, ilqr.ILQRConfig(max_iters=6), params, aux,
-                           z0, V0, use_pallas=False)
+                           z0, V0)
     V_f, Z_f, cost_f = pmpc_fast.solve_batch_fast(
-        mus, aux, z0, V0, dt=DT, max_iters=6, use_pallas=False)
+        mus, aux, z0, V0, dt=DT, max_iters=6)
     assert np.allclose(np.asarray(ref.cost), np.asarray(cost_f), rtol=1e-10)
     assert np.allclose(np.asarray(ref.V), np.asarray(V_f), atol=1e-10)
     assert np.allclose(np.asarray(ref.Z), np.asarray(Z_f), atol=1e-10)

@@ -84,6 +84,34 @@ def test_actor_critic_shapes_and_logstd_clamp():
     assert mean_b.shape == (7, 34) and value_b.shape == (7,)
 
 
+def test_actor_critic_restores_committed_checkpoint():
+    """The plain-JAX ActorCritic keeps the parameter tree of the Flax module
+    that wrote `artifacts/lmpc/general/best_agent`, so it restores as is."""
+    import os
+
+    from dart_tpu.adapt import lmpc_trainer as trainer
+    from dart_tpu.io import checkpoint as ckpt
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = ppo_mod.ActorCritic(act_dim=trainer.N_PARAMS)
+    tx = ppo_mod.make_optimizer(ppo_mod.PPOConfig())
+    ts = trainer.init_train_state(jax.random.PRNGKey(0), model, tx)
+    restored = ckpt.load_agent(
+        os.path.join(repo, "artifacts", "lmpc", "general"), "best_agent",
+        template={"params": ts.params, "opt_state": ts.opt_state,
+                  "episode": np.asarray(0), "return": np.asarray(0.0)})
+    assert restored is not None
+    assert (jax.tree.structure(restored["params"])
+            == jax.tree.structure(ts.params))
+    mean, std, value = model.apply(restored["params"],
+                                   jnp.zeros(trainer.OBS_DIM))
+    assert mean.shape == (trainer.N_PARAMS,) and value.shape == ()
+    assert bool(jnp.all(jnp.isfinite(mean))) and bool(jnp.isfinite(value))
+    # trained weights, not the init: the restored policy acts differently
+    mean0, _, _ = model.apply(ts.params, jnp.zeros(trainer.OBS_DIM))
+    assert float(jnp.max(jnp.abs(mean - mean0))) > 1e-3
+
+
 def test_ppo_update_moves_policy_toward_advantage():
     """After an update, log-probabilities must shift in the advantage
     direction, and the value head must fit returns better."""

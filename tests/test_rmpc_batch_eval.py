@@ -1,6 +1,6 @@
 """Batch-major RMPC closed-loop evaluator == vmapped per-instance evaluator
-(XLA path on CPU; the kernel path is TPU-only and covered by
-test_rmpc_solve_kernel + the TPU smoke artifacts)."""
+(adaptive XLA path on the CPU; the fixed-budget body of the GPU path is
+covered by test_rmpc_solve_kernel and test_rmpc_kernel_rescue)."""
 
 import numpy as np
 import jax

@@ -1,19 +1,17 @@
-"""CI gate for the RMPC kernel-path per-lane XLA rescue (VERDICT r2 next-2).
+"""CI gate for the RMPC kernel-path per-lane XLA rescue.
 
-The whole-solve Pallas kernel runs a FIXED unrolled budget; on stiff RLS
-estimates (|theta| ~ 10, as closed-loop adaptation produces on far-target
-low-mu rolling objects) that budget can under-converge and — fed back
-through the estimator — diverge the lane, while the adaptive XLA path
-(regularisation ladder + 8-alpha backtracking) converges it
-(docs/PERFORMANCE.md "KNOWN LIMITATION"). The fix routes lanes that the
-kernel's own certified diagnostics still flag after escalation to one XLA
+The whole-solve body runs a FIXED budget; on stiff RLS estimates
+(|theta| ~ 10, as closed-loop adaptation produces on far-target low-mu
+rolling objects) that budget can under-converge and — fed back through the
+estimator — diverge the lane, while the adaptive XLA path (regularisation
+ladder + 8-alpha backtracking) converges it. The fix routes lanes that the
+body's own certified diagnostics still flag after escalation to one XLA
 `solve_batch` and merges per lane (`RMPCBatch.solve_batched`,
 `kernel_xla_fallback=True`).
 
-A closed-loop interpreter-mode reproduction of the full far-target episode
-is infeasible in CI (one interpret-mode kernel call at the production
-6x4x3/N=20 budget costs > 5 min to trace alone), so this gate reproduces
-the MECHANISM at the same code path and reduced scale: a deliberately
+A closed-loop reproduction of the full far-target episode is too slow for
+CI on the CPU, so this gate reproduces the MECHANISM at the same code path
+(the kernel path forced through `ops.route`) and reduced scale: a deliberately
 starved kernel budget on stiff-estimate far-reference lanes, asserting
 (a) the kernel path without the fallback leaves lanes uncertified —
 the honest-failure precondition, (b) with the fallback every lane is
@@ -25,14 +23,11 @@ Reference behaviour being matched: IPOPT with max_iter=200 on the same OCP
 """
 
 import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from dart_tpu.adapt.rls import RLSState
 from dart_tpu.control import mpc as mpc_mod
+from dart_tpu.ops import route as route_mod
 
 B, N, DT = 128, 6, 0.01
 TOL_GRAD = 5e-3
@@ -47,7 +42,7 @@ def _make_controller(fallback: bool) -> mpc_mod.RMPCBatch:
         cfg=mpc_mod.ilqr.ILQRConfig(max_iters=10, al_iters=3),
         kernel_iters=1, kernel_alphas=2, kernel_al_rounds=1,
         kernel_tol_grad=TOL_GRAD, kernel_max_extra_rounds=0,
-        kernel_interpret=True, kernel_xla_fallback=fallback)
+        kernel_xla_fallback=fallback)
 
 
 def _make_batch():
@@ -100,7 +95,8 @@ def test_kernel_rescue_certifies_stiff_lanes():
     # property the r2 self-diagnostics added).
     ctlr0 = _make_controller(fallback=False)
     carry0 = _carry_with_theta(ctlr0, states, theta14)
-    _, u0, diag0 = ctlr0.solve_batched(carry0, states, targets)
+    with route_mod.forced("xla"):
+        _, u0, diag0 = ctlr0.solve_batched(carry0, states, targets)
     bad0 = (~(np.asarray(diag0.viol) <= ctlr0.cfg.tol_con)
             | ~(np.asarray(diag0.grad_norm) <= TOL_GRAD))
     assert bad0.any(), (
@@ -111,7 +107,8 @@ def test_kernel_rescue_certifies_stiff_lanes():
     # answer (finite, feasible, stationary), untouched lanes unchanged.
     ctlr1 = _make_controller(fallback=True)
     carry1 = _carry_with_theta(ctlr1, states, theta14)
-    _, u1, diag1 = ctlr1.solve_batched(carry1, states, targets)
+    with route_mod.forced("xla"):
+        _, u1, diag1 = ctlr1.solve_batched(carry1, states, targets)
     viol1 = np.asarray(diag1.viol)
     gn1 = np.asarray(diag1.grad_norm)
     assert np.all(np.isfinite(np.asarray(u1)))
@@ -129,7 +126,8 @@ def test_kernel_rescue_certifies_stiff_lanes():
     # first controls agree to solver tolerance.
     ctlr2 = _make_controller(fallback=False)
     carry2 = _carry_with_theta(ctlr2, states, theta14)
-    _, u2, diag2 = ctlr2.solve_batched(carry2, states, targets,
-                                       use_kernel=False)
+    with route_mod.forced("xla"):
+        _, u2, diag2 = ctlr2.solve_batched(carry2, states, targets,
+                                           use_kernel=False)
     d = np.abs(np.asarray(u1) - np.asarray(u2))[bad0]
     assert np.percentile(d, 95) < 5e-3, np.percentile(d, 95)

@@ -1,12 +1,12 @@
-"""Whole-solve RMPC Pallas kernel (AL outer loop included): parity with the
-generic constrained batch solver on the slew-exact OCP at a matched budget
-(interpreter mode on CPU)."""
+"""Fixed-budget RMPC whole-solve body (AL outer loop included): parity with
+the generic constrained batch solver on the slew-exact OCP at a matched
+budget."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from dart_tpu.control.reference import build_ref_traj
-from dart_tpu.ops.pallas.rmpc_solve import rmpc_solve_pallas
+from dart_tpu.ops.rmpc_solve import rmpc_solve
 from dart_tpu.solver import ilqr
 from dart_tpu.solver.ocp import RMPCAux, make_rmpc_ocp_du
 from dart_tpu.models import dynamics as dyn
@@ -17,7 +17,7 @@ U_B, DU_B, VMAX, V_EPS = 0.4, 0.05, 0.25, 0.1
 
 
 def test_whole_solve_kernel_matches_generic_al_solver():
-    B, N = 128, 6   # small horizon: interpreter mode is slow
+    B, N = 128, 6   # small horizon keeps the CPU compile short
     rng = np.random.default_rng(2)
     # Physical-ish regressor estimates: damping-dominated with small
     # couplings, as RLS produces mid-episode.
@@ -39,14 +39,14 @@ def test_whole_solve_kernel_matches_generic_al_solver():
     ocp = make_rmpc_ocp_du(dt=DT, u_bound=U_B, du_bound=DU_B, vmax=VMAX)
     cfg = ilqr.ILQRConfig(max_iters=2, n_alphas=3, al_iters=2,
                           reg_init=1e-9, tol_cost=1e-9)
-    sol = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0, use_pallas=False)
+    sol = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0)
 
     tl = lambda x: jnp.moveaxis(jnp.asarray(x), 0, -1)
     w = jnp.stack([bc(Qp), bc(Qv), bc(Ru), bc(Rdu)])           # (4, B)
-    V_p, cost_p, viol_p, gnorm_p = rmpc_solve_pallas(
+    V_p, cost_p, viol_p, gnorm_p = rmpc_solve(
         tl(thetas), tl(refs), w, tl(z0), tl(V0), dt=DT, u_bound=U_B,
         du_bound=DU_B, vmax=VMAX, v_eps=V_EPS, n_iters=2, n_alphas=3,
-        al_rounds=2, interpret=True)
+        al_rounds=2)
     V_p = jnp.moveaxis(V_p, -1, 0)
 
     assert np.allclose(np.asarray(cost_p), np.asarray(sol.cost),

@@ -25,8 +25,7 @@ def test_solve_batch_matches_vmap_solve():
     aux = PMPCAux(target=targets, Qp=jnp.full(B, 300.0),
                   Qv=jnp.full(B, 2.0), R=jnp.full(B, 0.2))
 
-    batched = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0,
-                               use_pallas=False)
+    batched = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0)
     ref = jax.vmap(lambda p, a, z, v: ilqr.solve(ocp, cfg, p, a, z, v))(
         params, aux, z0, V0)
 
@@ -44,7 +43,7 @@ def test_pmpc_batch_controller_matches_per_instance():
     B = 4
     rng = np.random.default_rng(1)
     cfg = ilqr.ILQRConfig(max_iters=10)
-    bctlr = mpc_mod.PMPCBatch(N=10, dt=0.02, cfg=cfg, use_pallas=False)
+    bctlr = mpc_mod.PMPCBatch(N=10, dt=0.02, cfg=cfg)
     sctlr = mpc_mod.PMPC(N=10, dt=0.02, cfg=cfg)
     states = jnp.asarray(rng.normal(size=(B, 6)) * 0.02)
     targets = jnp.asarray(rng.uniform(-0.08, 0.08, size=(B, 6)) *
@@ -85,8 +84,7 @@ def test_solve_batch_constrained_matches_vmap():
     z0 = jnp.asarray(rng.normal(size=(B, 6)) * 0.02)
     V0 = jnp.zeros((B, N, 2))
 
-    batched = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0,
-                               use_pallas=False)
+    batched = ilqr.solve_batch(ocp, cfg, params, aux, z0, V0)
     ref = jax.vmap(lambda p, a, z, v: ilqr.solve(ocp, cfg, p, a, z, v))(
         params, aux, z0, V0)
     assert np.allclose(np.asarray(batched.cost), np.asarray(ref.cost),
@@ -131,8 +129,7 @@ def test_lmpc_batch_controller_matches_per_instance():
                           np.array([1, 0, 1, 0, 0, 0, 0, 0]))
     pvecs = jnp.asarray(rng.uniform(0.05, 0.3, size=(B, 34)))
     carry_b = b.init_carry_batch(B, jnp.float64)
-    carry2_b, u_b, _ = b.solve_batched(carry_b, states, targets, pvecs,
-                                       use_pallas=False)
+    carry2_b, u_b, _ = b.solve_batched(carry_b, states, targets, pvecs)
     for i in range(B):
         carry_i = s.init_carry(jnp.float64)
         carry2_i, u_i, _ = s.solve(carry_i, states[i], targets[i], pvecs[i])
@@ -183,7 +180,7 @@ def test_pmpc_batch_fast_path_honors_custom_g():
     ref = per_instance(g_custom)
 
     # static float g -> fast path (use_kernel irrelevant on CPU)
-    bctlr = mpc_mod.PMPCBatch(N=10, dt=0.02, cfg=cfg, use_pallas=False)
+    bctlr = mpc_mod.PMPCBatch(N=10, dt=0.02, cfg=cfg)
     params = dyn.PMPCParams(mu=mus, dt=0.02, g=g_custom)
     _, u_fast, _ = bctlr.solve(bctlr.init_carry(B, jnp.float64), states,
                                targets, params, weights)

@@ -6,10 +6,10 @@ that replace the generic jacfwd/hessian stage of `ilqr._linearize`. These
 tests pin every closed form to the autodiff ground truth at random points
 and end-to-end on full solves (fast OCP vs `fast=False` OCP).
 
-NOTE: `fast=False` is the default on purpose. Measured on TPU (and CPU,
-tools/bench_fastpaths.py), XLA compiles the vmapped-jacfwd linearisation
-into BETTER code than the hand-assembled sparse closed forms (~5x faster on
-TPU, 4x faster compiles): vectorized tangent propagation fuses into the RK4
+NOTE: `fast=False` is the default on purpose. Measured on the CPU
+(tools/bench_fastpaths.py), XLA compiles the vmapped-jacfwd linearisation
+into better code than the hand-assembled sparse closed forms (faster
+runs and compiles): vectorized tangent propagation fuses into the RK4
 dataflow, while explicit per-stage (nz,nz) matrix assembly and tiny matmul
 chains do not. Structure only wins when it eliminates linearisation
 entirely (PMPC's affine exact discretisation, `solver/pmpc_fast.py`) or

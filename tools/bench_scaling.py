@@ -15,7 +15,7 @@ them together:
    parallelism, so the only collectives in the optimized HLO must be the
    final metric-aggregate psums, with a count INDEPENDENT of device
    count. This is the measured, compiled-program form of the scaling
-   claim ("collective-free episode body") — ICI/DCN traffic per episode
+   claim ("collective-free episode body") — interconnect traffic per episode
    is literally zero, so multi-chip efficiency is bounded by launch
    overheads, not communication.
 3. 2-PROCESS DCN PATH: the same sweep through `jax.distributed` across
@@ -32,6 +32,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import textwrap
 import time
 
@@ -57,10 +58,10 @@ _DCN_WORKER = textwrap.dedent("""
     sys.path.insert(0, {repo!r})
     import jax
     jax.config.update("jax_platforms", "cpu")
-    # Shared persistent compile cache across BOTH processes (VERDICT r4
-    # next-6): each process otherwise pays the full sweep compile.
-    jax.config.update("jax_compilation_cache_dir", "/tmp/dart_tpu_jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    # Shared persistent compile cache across BOTH processes: each process
+    # otherwise pays the full sweep compile.
+    from dart_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from dart_tpu.parallel import mesh as mesh_mod
 
     ok = mesh_mod.init_distributed(coordinator_address={addr!r},
@@ -116,7 +117,7 @@ _DCN_WORKER = textwrap.dedent("""
 
 def measure_dcn(per_dev, n_steps):
     addr = f"127.0.0.1:{_free_port()}"
-    script = "/tmp/_scaling_dcn_worker.py"
+    script = os.path.join(tempfile.mkdtemp(), "_scaling_dcn_worker.py")
     with open(script, "w") as f:
         f.write(_DCN_WORKER.format(repo=REPO, addr=addr, per_dev=per_dev,
                                    n_steps=n_steps))
@@ -254,7 +255,7 @@ def main():
                  "design — r3 committed those points, r4 drops them); "
                  "the collective census is the device-count-independent "
                  "evidence (aggregate-only collectives => per-episode "
-                 "ICI/DCN traffic is zero); DCN processes are core-pinned "
+                 "interconnect traffic is zero); the 2 processes are core-pinned "
                  "via taskset"),
         "episode_steps": N_STEPS, "episodes_per_device": PER_DEV,
         "weak_scaling": weak, "collective_census": census,

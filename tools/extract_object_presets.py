@@ -29,6 +29,7 @@ Usage: python tools/extract_object_presets.py
 """
 
 import os
+import tempfile
 
 import numpy as np
 
@@ -61,7 +62,7 @@ def probe(name):
     </body>
   </worldbody>
 </mujoco>"""
-    path = f"/tmp/_probe_{name}.xml"
+    path = os.path.join(tempfile.mkdtemp(), f"_probe_{name}.xml")
     with open(path, "w") as f:
         f.write(xml)
     m = mujoco.MjModel.from_xml_path(path)

@@ -36,8 +36,8 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/dart_tpu_jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from dart_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
